@@ -1,7 +1,7 @@
-"""ropebwt2_tpu — a TPU-native BWT/FM-index construction framework.
+"""ropebwt2_tpu — a BWT/FM-index construction framework in JAX.
 
-A from-scratch re-design of the capabilities of lh3/ropebwt2 (reference:
-/root/reference, version r187) for TPUs with JAX/XLA/Pallas:
+A from-scratch re-design of the capabilities of lh3/ropebwt2 (version r187)
+for accelerators with JAX/XLA:
 
 * Incremental, batched BCR-style construction of the multi-string BWT of a DNA
   read collection, with implicit RLO/RCLO sorting (reference: mrope.c:258-345).
@@ -26,15 +26,16 @@ import jax  # noqa: E402
 
 jax.config.update("jax_enable_x64", True)
 
-# Persistent compilation cache: BCR round kernels are re-jitted per shape
-# bucket; caching makes CLI invocations and restarts cheap.
-_cache_dir = os.environ.get(
-    "ROPEBWT2_TPU_CACHE", os.path.expanduser("~/.cache/ropebwt2_tpu/jax")
+# Persistent compilation cache: BCR batch programs are re-jitted per shape
+# bucket; caching makes CLI invocations and restarts cheap.  JAX itself
+# honours JAX_COMPILATION_CACHE_DIR; without it the cache sits at a fixed
+# path inside the checkout, so every process of one checkout shares it.
+CACHE_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), ".jax_cache"
 )
-if _cache_dir and _cache_dir != "0":
-    os.makedirs(_cache_dir, exist_ok=True)
-    jax.config.update("jax_compilation_cache_dir", _cache_dir)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+if not os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+    jax.config.update("jax_compilation_cache_dir", CACHE_DIR)
+jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
 
 __version__ = "0.1.0"
 

@@ -61,8 +61,7 @@ def _base_rank(state, pos, K):
 def _C(state):
     """Accumulative counts C(a) = # symbols < a (rld's e->cnt after finish).
     shape (7,): C[6] = total.  Returned in the index's position dtype
-    (int32 while the capacity fits — int64 vector math is ~10x slower on
-    TPU)."""
+    (int32 while the capacity fits)."""
     tot = state.pcounts.sum(axis=0)
     C = jnp.concatenate([jnp.zeros(1, I64), cumsum_small(tot)])
     return C.astype(_pos_dtype(state))

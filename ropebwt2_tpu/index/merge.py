@@ -1,6 +1,6 @@
 """Coalesced batched insertion into the flat BWT buffer.
 
-The TPU replacement for the reference's per-symbol rope/rle insertion
+The device replacement for the reference's per-symbol rope/rle insertion
 (rope_insert_run -> rle_insert_cached, rope.c:114-148, rle.c:10-97): a whole
 round's insertions are applied in ONE vectorized pass instead of one tree
 descent per run.

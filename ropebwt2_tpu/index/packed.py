@@ -1,29 +1,24 @@
 """4-bit packed BWT storage (2 symbols/byte) — the capacity mode.
 
 The reference holds 122 Gbp in 34 GB RAM because its index is run-length
-compressed (/root/reference/rle.h:39-75, README.md:36-39).  The flat TPU
-buffer at 1 byte/symbol caps a v5e chip near ~2 Gsym once the merge
-double-buffer and insertion map are counted; nibble packing halves both
-the resident footprint and the HBM traffic of every rank gather and merge
-DMA, carrying a single chip to >= 4 Gsym.
+compressed (rle.h:39-75, README.md:36-39).  The flat buffer spends 1
+byte/symbol plus the merge's double buffer; nibble packing halves both the
+resident footprint and the device-memory traffic of every rank gather and
+merge.
 
 Packing layout — VERTICAL PLANE PAIRS at 128-symbol row granularity:
 
     packed[r, j] = sym[(2r) * 128 + j]  |  sym[(2r+1) * 128 + j] << 4
 
 i.e. the low nibbles of packed row r are symbol row 2r and the high
-nibbles are symbol row 2r+1.  Chosen over adjacent-pair packing because a
-SYMBOL ROW stays a complete 128-lane vector in one nibble plane: every
-lane-dimension operation (rank in-block counts, the merge kernel's lane
-shifts, prefix scans) applies per plane unchanged, and extracting a row
-costs one shift+mask instead of a lane interleave (which Mosaic cannot
-express cheaply).
+nibbles are symbol row 2r+1.  A SYMBOL ROW stays a complete 128-wide
+vector in one nibble plane, so rank's in-block counts apply per plane
+unchanged and extracting a row costs one shift+mask.
 
 Rank tables in capacity mode are TWO-LEVEL (the device analogue of rld0's
 superblock frame, rld0.c:163-205): an int64 anchor row per 2^24 symbols
-plus int32 per-K-block counts relative to the anchor — int64 vector
-gathers are ~10x slower on TPU and the anchor level keeps them off the
-hot path at any capacity.
+plus int32 per-K-block counts relative to the anchor, so the wide table
+stays int32 at any capacity.
 """
 
 import dataclasses
@@ -39,7 +34,6 @@ from .scan import cumsum_blocked
 
 LANE = 128
 ACHUNK = 1 << 24  # symbols per int64 anchor row
-PPAD_ROWS = 16  # packed-row tail slack (= merge_pallas_packed.PPAD_ROWS)
 I32 = jnp.int32
 I64 = jnp.int64
 
@@ -51,7 +45,7 @@ class PackedFlatBwt:
     Drop-in sibling of flat.FlatBwt (same n/psize/pcounts bookkeeping);
     the engine branches on the state type at trace time."""
 
-    pbwt: jax.Array  # uint8[cap//2 + PPAD_ROWS*LANE]
+    pbwt: jax.Array  # uint8[cap//2]
     n: jax.Array  # int64 scalar
     psize: jax.Array  # int64[6]
     pcounts: jax.Array  # int64[6,6]
@@ -60,7 +54,7 @@ class PackedFlatBwt:
 
     @property
     def cap(self) -> int:
-        return (self.pbwt.shape[0] - PPAD_ROWS * LANE) * 2
+        return self.pbwt.shape[0] * 2
 
 
 PACKED_PAD_BYTE = np.uint8(PAD | (PAD << 4))
@@ -70,8 +64,7 @@ def empty_packed_state(cap: int) -> PackedFlatBwt:
     assert cap % 256 == 0
     na = (cap + ACHUNK - 1) // ACHUNK
     return PackedFlatBwt(
-        pbwt=jnp.full((cap // 2 + PPAD_ROWS * LANE,), PACKED_PAD_BYTE,
-                      dtype=jnp.uint8),
+        pbwt=jnp.full((cap // 2,), PACKED_PAD_BYTE, dtype=jnp.uint8),
         n=jnp.zeros((), I64),
         psize=jnp.zeros((NSYM,), I64),
         pcounts=jnp.zeros((NSYM, NSYM), I64),
@@ -91,8 +84,7 @@ def _grow_packed_arrays(pbwt, blkA, blkB, *, old_cap, new_cap):
     boundary values."""
     new_p = jnp.concatenate([
         pbwt[: old_cap // 2],
-        jnp.full((new_cap // 2 + PPAD_ROWS * LANE - old_cap // 2,),
-                 PACKED_PAD_BYTE, jnp.uint8),
+        jnp.full((new_cap // 2 - old_cap // 2,), PACKED_PAD_BYTE, jnp.uint8),
     ])
     # plane-separated blkB: extend each plane block, repeating the
     # boundary row (extension rows are all past n: garbage-tolerated)
@@ -133,12 +125,10 @@ def grow_packed_state(state: PackedFlatBwt, new_cap: int) -> PackedFlatBwt:
 
 @functools.partial(jax.jit, static_argnames=("cap",), donate_argnums=(0,))
 def _pack_from_int8(bwt_alloc, *, cap):
-    body = jnp.where(bwt_alloc[:cap] > 6, 6, bwt_alloc[:cap])
-    packed = pack_bwt(body)
-    return jnp.concatenate([
-        packed.astype(jnp.uint8),
-        jnp.full((PPAD_ROWS * LANE,), PACKED_PAD_BYTE, jnp.uint8),
-    ])
+    # bytes past the live prefix are unspecified: PAD keeps them a nibble
+    body = bwt_alloc[:cap]
+    body = jnp.where((body < 0) | (body > 6), 6, body)
+    return pack_bwt(body)
 
 
 def packed_from_flat(state, new_cap: int) -> PackedFlatBwt:
@@ -182,8 +172,7 @@ def unpack_bwt_np(packed_flat):
 def build_two_level_tables(packed_flat, cap):
     """(blkA, blkB) for K = 128 in the PLANE-SEPARATED blkB layout (see
     tables_from_plane_counts).  Built in 6 single-symbol passes with no
-    symbol-row interleave and no minor-dim-2 intermediate (both tile-pad
-    catastrophically on TPU)."""
+    symbol-row interleave."""
     p = packed_flat[: cap // 2].reshape(-1, LANE)
     plo = (p & 0xF).astype(jnp.int8)
     phi = (p >> 4).astype(jnp.int8)
@@ -208,16 +197,12 @@ def tables_from_plane_counts(lo6, hi6, cap):
     int32 (cap//256, 6)).
 
     blkB layout is PLANE-SEPARATED - row u holds the prefix at symbol row
-    2u, row (N+1)+u the prefix at 2u+1 - because materializing the
-    symbol-row interleave requires a transient with tiny minor dims
-    ((nsb, 2, 6, 512) at 4 Gsym) that XLA:TPU tile-pads ~20x: a 14.9 GB
-    HLO temp.  Consumers index rows with blkb_row().
+    2u, row (N+1)+u the prefix at 2u+1 - so no symbol-row interleave is
+    ever materialized.  Consumers index rows with blkb_row().
 
     All wide arrays stay int32: the global prefix may WRAP past 2^31, but
     the anchor-relative rows are < 2^24, so modular subtraction recovers
-    them exactly; only the (na+1, 6) anchor level accumulates in int64
-    (via cumsum_small: jnp.cumsum's int64 u32-pair reduce-window lowering
-    requests pathological scoped VMEM at these sizes)."""
+    them exactly; only the (na+1, 6) anchor level accumulates in int64."""
     from .scan import cumsum_small
 
     nprows = cap // (2 * LANE)  # packed rows
@@ -268,9 +253,7 @@ def rank_global_packed(pbwt, blkA, blkB, pos, K=LANE):
 
 
 def apply_insertions_packed(pbwt, n, pos, sym, stream, valid):
-    """jnp reference merge on packed storage: unpack -> merge -> repack.
-    Used on CPU (tests, virtual meshes); the TPU path is the packed Pallas
-    kernel (merge_pallas_packed)."""
+    """Merge on packed storage: unpack -> merge -> repack."""
     from .merge import apply_insertions
 
     sym_flat = unpack_bwt(pbwt)

@@ -26,12 +26,6 @@ Representation (all device-resident, static capacity Pcap):
 * ``blk_prefix`` int32[Pcap//KP+1, 6] per-symbol prefix counts at KP-block
            boundaries of psym — the same rank structure as the base buffer
            (index/rank.py), rebuilt after each round's merge-in.
-           (A FULL-RESOLUTION (pcap+1, 6) variant — occ = table[#(vp<g)],
-           one narrow gather replacing the final row gathers — was built
-           and measured 3.5x SLOWER on chip: (Q, 6)-row gathers over a
-           2^20-row span lower to a slow element-gather form, the same
-           pathology probe_gather_tpu.py shows for any non-128-lane row.
-           Keep gathered rows 128 lanes wide.)
 * ``p``    int32 scalar, live count.
 
 Merging one round's insertions (gX = old-coordinate insertion points,
@@ -57,7 +51,7 @@ verbatim: row i is an insertion at base position vp[i] - i with tie rank i
 
 Matches the role of the reference's rope buffering economics
 (/root/reference/rope.c:114-148, mrope.c:299-342); no structural
-counterpart exists in the reference — this is the TPU re-expression.
+counterpart exists in the reference — this is the device re-expression.
 """
 
 import dataclasses
@@ -77,12 +71,10 @@ _F = 128  # searchsorted_blocked fanout (one gather lane row per level)
 
 def searchsorted_blocked(vp, g):
     """count[q] = |{ i : vp[i] < g[q] }| for sorted ``vp`` — the
-    side='left' searchsorted.  jnp.searchsorted lowers to a log2(N)-step
-    while-loop of dynamic gathers that measures ~144 ms at (N=2^21,
-    Q=2^18) on the v5e (scripts/probe_pending_tpu.py); this blocked
-    descent — the same structure as the BWT rank path (index/rank.py) —
-    does ceil(log128(N)) - 1 row gathers of (Q, 128) plus vectorized
-    compare-counts, ~1 ms at the same shape.
+    side='left' searchsorted as a blocked descent — the same structure as
+    the BWT rank path (index/rank.py): ceil(log128(N)) - 1 row gathers of
+    (Q, 128) plus vectorized compare-counts, where jnp.searchsorted runs a
+    log2(N)-step loop of dependent element gathers.
 
     Descent invariant: for sorted a and heads h = a[::F], the F-block of
     ``a`` containing the last element < g is j = max(#(h < g) - 1, 0), and
@@ -124,9 +116,7 @@ def _inf(pdt):
 
 def _lt(rows, gq):
     """rows < gq, elementwise with broadcasting.  For int64 operands the
-    compare runs as a hi/lo int32 pair compare (bitcast): int64 VECTOR
-    ops are 10-50x slower on the v5e (HACKING.md), and the descents over
-    >2^31-symbol pending indexes are compare-heavy.  Values are
+    compare runs as a hi/lo 32-bit pair compare (bitcast).  Values are
     non-negative (positions + the INF sentinel), so the signed-hi /
     unsigned-lo composite ordering is exact."""
     if rows.dtype != jnp.int64:
@@ -156,12 +146,8 @@ class PendingIndex:
 
 def pending_cap(max_rows_per_round: int, R: int) -> int:
     """Static pending capacity for R rounds of <= max_rows_per_round
-    insertions, padded to the lcm of the scan window (256) and KP; large
-    capacities round to the Pallas kernel's super-block (131072) so the
-    VMEM-resident merge applies (pending_pallas.py)."""
+    insertions, padded to the lcm of the scan window (256) and KP."""
     need = max(max_rows_per_round * R, 256)
-    if need >= (1 << 17):
-        return -(-need // (1 << 17)) * (1 << 17)
     return -(-need // 256) * 256
 
 
@@ -256,8 +242,6 @@ def pending_rank2(pend: PendingIndex, gl, gu):
     jc = jnp.clip(j, 0, max(nbk - 2, 0)).astype(I32)
 
     def pair_gather(arr2d, sizes):
-        # plain paired row indexing — the windowed lax.gather form
-        # kernel-faults inside the engine context (see rank2_global)
         del sizes
         return arr2d[
             jc[:, None] + jnp.arange(2, dtype=I32)[None, :]
@@ -315,8 +299,10 @@ def pending_add(pend: PendingIndex, gX, sym, stream, active) -> PendingIndex:
     with vp[i] < gX has shift s[i] <= r, so vp[i]+s[i] < gX+r; old row
     with vp[i] >= gX has s[i] >= r+1, so vp[i]+s[i] > gX+r), which kills
     the second searchsorted AND the intermediate sorted-new-block scatter:
-    both payloads scatter directly to merged slots.  Old rows move via the
-    log-shift insertion expand (slope <= 1; merge_pallas.py argument)."""
+    both payloads scatter directly to merged slots.  Old rows move by a
+    log-shift expand (slot i takes old row i - c(i), c = inclusive count
+    of new rows up to i), exact because c is non-decreasing with slope
+    <= 1."""
     pcap = pend.cap
     pdt = pend.vp.dtype
     m = gX.shape[0]
@@ -333,9 +319,7 @@ def pending_add(pend: PendingIndex, gX, sym, stream, active) -> PendingIndex:
     s = cumsum_blocked(hist)
     vps = jnp.minimum(vp + s.astype(pdt), INF)  # shifted old rows (sorted)
 
-    # two narrow scatters place every new row at its merged slot (an int64
-    # packed single scatter measured SLOWER: the pcap-wide int64 unpack
-    # passes hit the 10-50x int64 vector penalty)
+    # two narrow scatters place every new row at its merged slot
     merged_slot = jnp.where(
         active, stream.astype(I32) + k, pcap
     )
@@ -348,8 +332,6 @@ def pending_add(pend: PendingIndex, gX, sym, stream, active) -> PendingIndex:
         mode="drop", unique_indices=True,
     )
 
-    if _use_pallas_pending(pcap, pdt):
-        return _pending_add_pallas(pend, varr, sarr, active)
     is_new = sarr != 0
 
     # old rows: log-shift expand by c = prefix of is_new
@@ -383,81 +365,9 @@ def pending_add(pend: PendingIndex, gX, sym, stream, active) -> PendingIndex:
     )
 
 
-def _use_pallas_pending(pcap: int, pdt) -> bool:
-    """The Pallas pending-merge kernel runs on real TPUs for int32
-    pending indexes whose capacity is a SUPER_B multiple (pending_cap
-    rounds capacities >= 131072 up to it)."""
-    import os
-
-    import jax
-
-    if os.environ.get("ROPEBWT2_TPU_PALLAS", "1") == "0":
-        return False
-    if os.environ.get("ROPEBWT2_TPU_PEND_PALLAS", "1") == "0":
-        return False
-    from .pending_pallas import SUPER_B
-
-    return (
-        jax.default_backend() == "tpu"
-        and pdt == I32
-        and pcap % SUPER_B == 0
-    )
-
-
-def _pending_add_pallas(pend: PendingIndex, varr, sarr, active,
-                        interpret=False):
-    """Kernel-backed pending merge: VMEM-resident expand ladder instead of
-    ~17 pcap-wide XLA passes (see index/pending_pallas.py)."""
-    from .pending_pallas import (
-        B as PB, PAD_ROWS, LANE, SUPER_B, pending_merge_pallas,
-    )
-
-    pcap = pend.cap
-    pdt = pend.vp.dtype
-    INF = _inf(pdt)
-    nb = pcap // PB
-    blk_cnts = jnp.sum((sarr != 0).reshape(nb, PB), axis=1, dtype=I32)
-    start_new = jnp.concatenate(
-        [jnp.zeros(1, I32), cumsum_blocked(blk_cnts)]
-    )
-    n_new = start_new[-1]
-    p_after = pend.p + n_new
-    nsb_active = jnp.minimum(
-        (p_after + SUPER_B - 1) // SUPER_B, pcap // SUPER_B
-    ).astype(I32)
-    padv = jnp.full((PAD_ROWS * LANE,), INF, pdt)
-    pads = jnp.full((PAD_ROWS * LANE,), PAD, jnp.int8)
-    new_vp, new_sym, cnt = pending_merge_pallas(
-        jnp.concatenate([pend.vp, padv]),
-        jnp.concatenate([pend.psym, pads]),
-        varr, sarr, start_new, nsb_active, interpret=interpret,
-    )
-    new_vp = new_vp[:pcap]
-    new_sym = new_sym[:pcap]
-    # repair the tail: super-blocks past the live prefix are uninitialized
-    # in the kernel outputs, but the descent reads the FULL width
-    iota = jnp.arange(pcap, dtype=I32)
-    dead = iota >= p_after
-    new_vp = jnp.where(dead, INF, new_vp)
-    new_sym = jnp.where(dead, PAD, new_sym)
-    # counts -> KP-block prefix (garbage rows sit past the live prefix and
-    # are never addressed by the descent)
-    nsb_total = pcap // SUPER_B
-    srows = SUPER_B // LANE
-    rows6 = jnp.transpose(
-        cnt.reshape(nsb_total, 8, srows)[:, :NSYM, :], (0, 2, 1)
-    ).reshape(pcap // LANE, NSYM)
-    table = jnp.concatenate(
-        [jnp.zeros((1, NSYM), I32), cumsum_blocked(rows6)]
-    )
-    return PendingIndex(
-        vp=new_vp, psym=new_sym, blk_prefix=table, p=p_after
-    )
-
-
 def pending_flush_args(pend: PendingIndex):
-    """(pos, sym, stream, valid) for apply_insertions/merge_pallas: row i
-    is an insertion at base position vp[i] - i with tie rank i."""
+    """(pos, sym, stream, valid) for the base merge: row i is an insertion
+    at base position vp[i] - i with tie rank i."""
     pcap = pend.cap
     pdt = pend.vp.dtype
     iota = jnp.arange(pcap, dtype=pdt)

@@ -1,7 +1,7 @@
 """Blockwise rank (occ) over the flat BWT buffer.
 
 Equivalent query semantics to the reference's rope_rank2a/rle_rank2a
-(rope.c:179-194, rle.c:134-191), re-designed for the TPU: a dense per-block
+(rope.c:179-194, rle.c:134-191), re-designed for a device: a dense per-block
 prefix-count table plus a vectorized in-block count, instead of a B+-tree
 descent plus run decoding.  All queries are batched.
 """
@@ -18,8 +18,7 @@ def build_block_tables(bwt, K: int, dtype=jnp.int64):
 
     bwt: int8[ALLOC] (content beyond n unspecified — rows past the live
     prefix are garbage and must never be consumed).  Returns
-    dtype[ALLOC//K + 1, 6]; pass int32 while counts fit (int64 vector math
-    is an order of magnitude slower on TPU)."""
+    dtype[ALLOC//K + 1, 6]; pass int32 while counts fit."""
     nb = bwt.shape[0] // K
     blocks = bwt.reshape(nb, K)
     sym = jnp.arange(NSYM, dtype=bwt.dtype)
@@ -39,8 +38,7 @@ def rank_global(bwt, blk_prefix, pos, K: int):
     """Batched 6-symbol rank at global positions.
 
     pos: int[Q] with 0 <= pos <= n.  Returns out[q, s] = |{ i < pos[q] :
-    bwt[i] == s }| in blk_prefix's dtype (pass an int32 table for speed when
-    counts fit — int64 vector ops are an order of magnitude slower)."""
+    bwt[i] == s }| in blk_prefix's dtype (int32 tables while counts fit)."""
     blk = pos // K
     within = (pos % K).astype(jnp.int32)
     base = blk_prefix[blk]  # (Q, 6)
@@ -64,12 +62,7 @@ def rank2_global(bwt, blk_prefix, gl, gu, K: int):
     blk = gl // K
     nb = bwt.shape[0] // K
     blkc = jnp.clip(blk, 0, nb - 2)
-    # paired row gather (two (Q,K) rows).  A single windowed (2,K)-slice
-    # lax.gather measured fine standalone but reproducibly KERNEL-FAULTS
-    # the TPU worker when executed inside the engine's fori/cond context
-    # (round-5 bisection, HACKING.md) — plain row indexing lowers safely,
-    # and the fusion still saves the second descent/table work vs two
-    # rank calls.
+    # paired row gather: two (Q, K) rows by plain row indexing
     pair = bwt.reshape(-1, K)[
         blkc[:, None] + jnp.arange(2, dtype=blkc.dtype)[None, :]
     ].reshape(-1, 2 * K)

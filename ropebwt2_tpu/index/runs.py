@@ -7,7 +7,8 @@ rld0.h:11-13 superblock frames), which is how 122 Gbp fits in 34 GB
 packed.py 4-bit) store O(n) and also PAY O(n) per merge flush.  This tier
 stores and rewrites O(runs): on coverage-shaped read sets (the
 reference's benchmark datasets are 39-47x resequencing runs) that is an
-order of magnitude less HBM for storage, rank gathers AND the flush.
+order of magnitude less device memory for storage, rank gathers AND the
+flush.
 
 Representation (structure-of-arrays, fixed 128-run blocks — the array
 analogue of the reference's fixed-size rle leaves):
@@ -53,7 +54,7 @@ End-of-sequence insertions need no special casing: they resolve to the
 phantom host slot at index nslot (PAD, length 0), which rule 3 replaces.
 
 No structural counterpart exists in the reference beyond the shared math
-of run splitting; this is the TPU re-expression of rle.c's economics.
+of run splitting; this is the device re-expression of rle.c's economics.
 """
 
 import dataclasses
@@ -239,8 +240,7 @@ def _rebuild_tables(lens, syms, nslot, gdt):
     rcap = lens.shape[0]
     nbl = rcap // KR
     lb = lens.reshape(nbl, KR)
-    # in-block inclusive prefix via shift-adds (XLA's reduce-window
-    # cumulative lowering is slow on TPU; see index/scan.py)
+    # in-block inclusive prefix via shift-adds (see index/scan.py)
     rend = cumsum_small(lb, axis=1).reshape(rcap)
     btot = rend.reshape(nbl, KR)[:, KR - 1].astype(gdt)  # block totals
     bstart = jnp.concatenate(
@@ -489,7 +489,7 @@ def _expand_chunked(old_len, old_sym, ns_arr, nl_arr, M, live_slots=None):
     the variable gather runs as the mirrored log-shift ladder with the
     NON-INCREASING forward shift d(p) = S[k+1] - c(p) (slope >= -1, so
     source indices are monotone and bit-by-bit shifting is exact, the
-    reverse of index/merge_pallas.py's expand argument).  Chunk 0 uses
+    mirror of index/pending.py's log-shift expand).  Chunk 0 uses
     the plain backward-shift ladder on a [0, CH) window."""
     rcap = old_len.shape[0]
     CH = RUNS_CHUNK

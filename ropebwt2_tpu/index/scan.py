@@ -1,10 +1,9 @@
-"""Blocked prefix sums for TPU.
+"""Blocked prefix sums.
 
-XLA lowers big 1-D/column cumsums to reduce-window chains that are both slow
-on the VPU and (for emulated int64) can blow the scoped-VMEM budget inside
-fused loops.  Instead: cumsum within B-element windows as a lower-triangular
-matmul on the MXU (exact in f32 for window sums <= 2^24), then recursively
-prefix-sum the window totals in integer precision and broadcast the bases.
+Cumsum within B-element windows as a lower-triangular f32 matmul (exact
+for window sums <= 2^24 at HIGHEST precision), then a recursive integer
+prefix sum of the window totals, broadcast back as bases.  Small axes use
+Hillis-Steele shift-adds.
 """
 
 import jax
@@ -17,8 +16,7 @@ _LEAF = 1024  # below this, shift-add scan on the whole axis
 
 def cumsum_small(x, axis=0):
     """Inclusive prefix sum via Hillis-Steele shift-adds — O(n log n)
-    elementwise adds, NO reduce-window (XLA's int64-pair reduce-window
-    lowering requests pathological scoped VMEM inside fused loops)."""
+    elementwise adds, for small axes."""
     n = x.shape[axis]
     shift = 1
     while shift < n:
@@ -33,7 +31,7 @@ def cumsum_small(x, axis=0):
 
 def _cummax_small(x, axis=0, reverse=False, op=jnp.maximum):
     """Inclusive prefix max (min with op=jnp.minimum) via Hillis-Steele
-    shift-combines — avoids XLA's slow reduce-window cumulative lowering."""
+    shift-combines."""
     n = x.shape[axis]
     shift = 1
     while shift < n:
@@ -66,8 +64,7 @@ def cummax_blocked(x, reverse=False, op=None):
     """Inclusive prefix max along axis 0 of (M,) or (M, C) integer arrays;
     reverse=True scans from the end (suffix max).  Two-level: Hillis-Steele
     within 256-element windows vectorized across windows, then a recursive
-    scan of window totals — much faster than XLA's reduce-window chain for
-    M-sized operands on TPU.  Pass op=jnp.minimum for cummin."""
+    scan of window totals.  Pass op=jnp.minimum for cummin."""
     if op is None:
         op = jnp.maximum
     squeeze = x.ndim == 1
@@ -103,11 +100,12 @@ def cumsum_blocked(x, exact=False):
     """Inclusive prefix sum along axis 0 of an integer array shaped (M,) or
     (M, C).  M must be a multiple of 256 unless M <= leaf size.
 
-    The MXU path computes 256-element window sums in f32, exact only while
-    they stay below 2^24 — fine for one-hot/count inputs bounded by the
-    window length.  Pass exact=True when single elements can be large (e.g.
-    per-position insertion multiplicities): windows then use an integer
-    shift-add scan instead."""
+    The matmul path computes 256-element window sums in f32, exact only while
+    they stay below 2^24 at every level of the recursion (the second level
+    sums 65536 input elements) — fine for one-hot/count inputs bounded by
+    the block length.  Pass exact=True when single elements can be large
+    (e.g. per-position insertion multiplicities): windows then use an
+    integer shift-add scan instead."""
     squeeze = x.ndim == 1
     if squeeze:
         x = x[:, None]
@@ -115,14 +113,11 @@ def cumsum_blocked(x, exact=False):
     return out[:, 0] if squeeze else out
 
 
-# PRECISION, NOT A MISCOMPILE: XLA:TPU's DEFAULT matmul precision silently
-# evaluates f32 dots with bf16 operands at larger shapes (small shapes get
-# an exact decomposition, which hid this until ~2^19-row programs).  bf16
-# rounds integers above 256, so every exactness-critical contraction in
-# this codebase — the window tri-matmul here, the plan's one-hot selects —
-# must pin precision=HIGHEST (true f32: exact for values < 2^24).  Probed
-# in scripts/probe_numerics_tpu.py; a raw default-precision tri window with
-# values > 256 is wrong at ANY size on the chip.
+# Every exactness-critical f32 contraction in this codebase — the window
+# tri-matmul here, the plan's one-hot selects — pins precision=HIGHEST
+# (true f32: exact for values < 2^24).  The default precision may run f32
+# dots with reduced-precision operands (TF32 on the GPU keeps 10 mantissa
+# bits), which rounds integers above 2^11.
 _EXACT = jax.lax.Precision.HIGHEST
 
 

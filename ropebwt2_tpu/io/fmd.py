@@ -342,7 +342,7 @@ class FmdReader:
     via the sampled frame index (rld_locate_blk + block decode,
     rld0.c:357-471), extend() (rld0.c:473-489), a streaming run iterator
     (rld_dec, rld0.h:98-116), and to_flat() to lift the index into a
-    device-resident FlatBwt for the batched TPU query API."""
+    device-resident FlatBwt for the batched device query API."""
 
     HDR = 10  # header words before the data: magic/a, reserved, n_bytes,
     # n_frames, mcnt[1..6]  (rld_dump, rld0.c:223-244)
@@ -558,14 +558,14 @@ class FmdReader:
             yield last_c, last_l
 
     def to_flat(self, K=256):
-        """Lift into a device-resident FlatBwt so the batched TPU query API
+        """Lift into a device-resident FlatBwt so the batched device query API
         (engine/query.py) runs over a restored FMD.  Vectorized: bulk run
         decode (native when available) -> np.repeat -> partition counts
         from the C(a) boundaries."""
         import jax.numpy as jnp
         import numpy as np
 
-        from ..index.flat import FlatBwt, PAD, PAD_TAIL, table_dtype
+        from ..index.flat import FlatBwt, PAD, table_dtype
         from ..index.rank import build_block_tables
 
         syms, lens = self.runs_arrays()
@@ -582,7 +582,7 @@ class FmdReader:
                 : self.asize
             ]
         cap = max(K, -(-n // K) * K)
-        buf = np.full(cap + PAD_TAIL, PAD, np.int8)
+        buf = np.full(cap, PAD, np.int8)
         buf[:n] = flat
         bwt = jnp.asarray(buf)
         return FlatBwt(

@@ -20,12 +20,19 @@ _tried = False
 
 
 def _build():
+    # a per-process temporary: processes that build at once (test workers
+    # in a fresh checkout) each write their own and rename it atomically
+    tmp = f"{_SO}.{os.getpid()}.tmp"
     cmd = [
         "g++", "-O2", "-shared", "-fPIC", "-std=c++17", "-pthread",
-        "-o", _SO + ".tmp", _SRC, "-lz",
+        "-o", tmp, _SRC, "-lz",
     ]
-    subprocess.run(cmd, check=True, capture_output=True)
-    os.replace(_SO + ".tmp", _SO)
+    try:
+        subprocess.run(cmd, check=True, capture_output=True)
+        os.replace(tmp, _SO)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
 
 
 def get_lib():

@@ -1,7 +1,7 @@
 // Native host runtime for ropebwt2_tpu: sequence input, preprocessing,
 // batching, and the serial output codecs.  These are the pieces the
 // reference implements in C (kseq.h, main.c preprocessing, rld0.c, rle.h,
-// crlf.c); the TPU framework keeps them native for speed and exposes them
+// crlf.c); this framework keeps them native for speed and exposes them
 // to Python over a C ABI (ctypes).
 //
 // Implemented fresh from the formats' specifications; see the matching

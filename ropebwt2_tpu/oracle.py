@@ -4,7 +4,7 @@ This is the framework's correctness oracle: a direct, slow, obviously-correct
 implementation of the algorithm the reference implements with six B+-trees
 (mr_insert1: mrope.c:42-68; mr_insert_multi: mrope.c:184-345).  Here the six
 BWT partitions are plain Python lists of symbols; rank is a prefix count and
-insertion is list splicing.  The JAX/TPU engine is tested against this, and
+insertion is list splicing.  The JAX engine is tested against this, and
 this in turn is tested against a brute-force suffix sort (bruteforce.py) and
 the compiled reference binary.
 

@@ -11,9 +11,9 @@ local-scan + carry exchange, and the cross-bucket rebase reductions become
 psums.
 
 The padded all-to-all exchanges (one slot row per (source, target) pair,
-slot capacity = rows per shard) trade up to D-fold ICI volume on a small
-buffer for fully data-dependent routing with static shapes — the right
-trade while the routed payload (a few MB) is far below the ICI
+slot capacity = rows per shard) trade up to D-fold interconnect volume on
+a small buffer for fully data-dependent routing with static shapes — the
+right trade while the routed payload (a few MB) is far below the link's
 bandwidth-delay product.  See HACKING.md for the scaling model.
 """
 
@@ -60,9 +60,8 @@ class LocalComm:
 
     def permute(self, dest, arrays):
         dts = {a.dtype for a in arrays}
-        # the stacked (M, k) scatter saves per-op overhead but its tiny
-        # minor dim is tile-padded k -> 128 lanes on TPU (HBM inflation
-        # ~128/k x): only worth it while the padded transient stays small
+        # the stacked (M, k) scatter saves per-op overhead; above 2^18 rows
+        # the per-array scatters avoid the (M, k) transient
         if len(dts) == 1 and arrays[0].shape[0] <= (1 << 18):
             stacked = jnp.stack(arrays, axis=1)
             out = jnp.zeros_like(stacked).at[dest].set(
@@ -230,7 +229,7 @@ class ShardComm:
         (tgt, slot) lets the caller route replies back with ``reply``.
 
         ``slot_cap`` = S < Q enables CONCENTRATION-AWARE slots: the
-        all_to_all ships only S rows per (src, tgt) pair (ICI volume
+        all_to_all ships only S rows per (src, tgt) pair (volume
         D*S instead of the worst-case D*Q), falling back to the full
         exchange — compiled but rarely executed — when any shard would
         overflow (the predicate is psum'd, so every shard takes the same

@@ -1,16 +1,16 @@
 """Device-mesh sharding for the BCR engine.
 
 The reference's only thread-level parallelism is the 5-way symbol-bucket
-pthread split (mrope.c:235-256).  On TPU the natural axes are instead:
+pthread split (mrope.c:235-256).  On a device mesh the natural axes are
+instead:
 
 * the flat BWT buffer (and its rank tables) sharded by position range —
   the 'index parallel' axis; rank gathers and the merge pass become
-  XLA-collective traffic over ICI
+  collective traffic between devices
 * the per-read state arrays sharded by read — the data-parallel axis
 
-Round 1 implementation: positional `NamedSharding`s under `jit` (XLA SPMD
-inserts the collectives).  An explicit `shard_map` pipeline with
-all-to-all query routing is the planned next step (SURVEY.md §7.7).
+The sharded engine (parallel/sharded.py) runs an explicit ``shard_map``
+pipeline with all-to-all query routing over these meshes.
 """
 
 import jax
@@ -30,10 +30,11 @@ def make_mesh2d(hosts, shards, host_axis="h", shard_axis="s"):
 
     Host-major device order: shard ranges [h*S*LCAP ...] are contiguous
     within a host, so the neighbor-heavy collectives (sort re-shard, the
-    merge tail ppermute) ride ICI and only host-boundary rows cross DCN.
-    On real multi-host TPU, ``jax.devices()`` orders devices host-major
-    already; under ``jax.distributed`` each process contributes its local
-    devices to the same global mesh.  The sharded engine consumes the mesh
+    merge tail ppermute) stay inside a host and only host-boundary rows
+    cross the network.  Under ``jax.distributed`` each process contributes
+    its local devices to the same global mesh, host-major.  On one host,
+    where every device reaches every other at the same rate, the 2-D mesh
+    is only a multi-host scaffold.  The sharded engine consumes the mesh
     through the flattened axis tuple (parallel/sharded.py)."""
     devs = jax.devices()
     n = hosts * shards

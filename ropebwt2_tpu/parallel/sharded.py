@@ -27,8 +27,8 @@ Per round:
   exchanged with one non-wrapping ppermute per round.
 * the cross-bucket rebase (mrope.c:332-340) reductions ride psums.
 
-See HACKING.md for the scaling model (collective volumes vs ICI) and the
-measured 1->8 device CPU-mesh shapes.
+See HACKING.md for the scaling model (collective volumes per round) and
+the 1->8 device CPU-mesh shapes.
 
 Multi-host (SURVEY.md §7.7): the same engine runs over a 2-D
 ``(host, shard)`` mesh — every collective takes the FLATTENED axis tuple
@@ -37,14 +37,14 @@ ranges live within one host.  Traffic split under that layout:
 
 * the sort re-shard moves each read record to the shard owning its global
   sorted rank; sorted ranks drift slowly between rounds, so most rows move
-  between NEIGHBORING shards — intra-host ICI, with only boundary rows
-  crossing hosts over DCN;
+  between NEIGHBORING shards — inside one host, with only boundary rows
+  crossing hosts over the network;
 * rank/insert routing is near-uniform over shards for random batches, so
-  a (D-S)/D share of routed rows crosses hosts (DCN) and S/D stays local
-  (ICI); the slot-capped exchange bounds the padded volume either way,
-  and the psum'd overflow fallback stays global;
+  a (D-S)/D share of routed rows crosses hosts and S/D stays local; the
+  slot-capped exchange bounds the padded volume either way, and the
+  psum'd overflow fallback stays global;
 * the per-round rebase reductions (6x6 count matrix) and boundary
-  ppermutes are O(bytes) — DCN latency-bound, not bandwidth-bound.
+  ppermutes are O(bytes) — latency-bound, not bandwidth-bound.
 
 Per-host input feeding: each host packs and feeds only its own read-state
 rows (rows are sharded host-major), so batch ingest bandwidth scales with
@@ -65,6 +65,7 @@ from ..index.flat import PAD
 from ..index.rank import build_block_tables, rank_global
 from ..index.scan import cumsum_blocked
 from ..engine.bcr import (
+    FLUSH_PER_PEND_PLAIN,
     I32,
     I64,
     ReadStates,
@@ -99,7 +100,7 @@ def _routed_rank_fn(comm, bwt_loc, blkp_loc, lcap, K):
         tgt = jnp.clip(gpos // lcap, 0, comm.d - 1).astype(I32)
         valid = jnp.ones(q, bool)
         # rank positions of a random batch route near-uniformly: c*Q/D
-        # slots instead of worst-case Q (ICI volume /(D/c)); the psum'd
+        # slots instead of worst-case Q (volume /(D/c)); the psum'd
         # overflow fallback keeps adversarial rounds exact
         s_cap = _slot_cap(q, comm.d)
         rv, (rq,), route = comm.exchange(tgt, valid, [gpos],
@@ -119,58 +120,24 @@ def _slot_cap(q, d):
     return min(q, _round_up(4 * q // d, 256))
 
 
-def _use_sharded_pallas(lcap, m, K):
-    import os
-
-    import jax as _jax
-
-    from ..index import merge_pallas as mp
-
-    if os.environ.get("ROPEBWT2_TPU_PALLAS", "1") == "0":
-        return False
-    return (
-        _jax.default_backend() == "tpu"
-        and (lcap + m) % mp.SUPER_B == 0
-        and (lcap + m) // mp.LANE < (1 << 30)
-        and K % mp.LANE == 0
-        and m % K == 0
-    )
-
-
-def stitched_kernel_merge(bwt_loc, tail, ldest, rsym, rv, s_lo, lcap, K,
-                          interpret=False):
-    """Apply a shard's received insertions + the cross-shard drift with the
-    UNCHANGED Pallas merge kernel: run it on the stitched (tail + window)
-    buffer and express the drift as ``s_lo`` phantom insertion marks in
-    the head (tail) region — the kernel's insertion-count prefix then
-    shifts every window position by exactly s_lo + local marks, which IS
-    the drift equation out[t] = stitched[m + t - s_lo - c(t)].  Phantom
-    marks write garbage symbols into head positions that the caller
-    slices away.  Position arithmetic is int32 (per-shard sizes).
-
-    Returns (new_loc int8[lcap], stitched_prefix int32[..,6]) — the
-    caller rebases table rows by subtracting row m//K."""
-    from ..index.flat import PAD, PAD_TAIL
-    from ..index.merge_pallas import merge_pallas
-
+def stitched_merge(bwt_loc, tail, ldest, rsym, s_lo):
+    """Apply a shard's received insertions plus the cross-shard drift to
+    its window: output position t holds the inserted symbol when t is a
+    local destination, else stitched[m + t - s_lo - c(t)] with stitched =
+    (left neighbor's m-symbol tail + window) and c(t) the inclusive count
+    of local destinations up to t.  ``ldest`` holds window offsets
+    (out-of-window rows are dropped), unique among the valid ones."""
     m = tail.shape[0]
-    stitched = jnp.concatenate(
-        [tail, bwt_loc, jnp.full((PAD_TAIL,), PAD, jnp.int8)]
+    lcap = bwt_loc.shape[0]
+    insmap = jnp.zeros((lcap,), jnp.int8)
+    insmap = insmap.at[ldest].set(
+        (rsym + 1).astype(jnp.int8), mode="drop", unique_indices=True
     )
-    iota_m = jnp.arange(m, dtype=I32)
-    head_valid = iota_m < s_lo
-    pos = jnp.concatenate([
-        jnp.where(head_valid, iota_m, 0),
-        jnp.where(rv, jnp.clip(ldest, 0, lcap - 1).astype(I32) + m, 0),
-    ])
-    sym_all = jnp.concatenate([jnp.zeros(m, I32), rsym.astype(I32)])
-    stream = jnp.zeros(pos.shape[0], I32)
-    valid = jnp.concatenate([head_valid, rv])
-    new_st, blkp_st = merge_pallas(
-        stitched, pos, sym_all, stream, valid, n=None, K=K,
-        interpret=interpret,
-    )
-    return new_st[m : m + lcap], blkp_st
+    c_local = cumsum_blocked((insmap != 0).astype(I32))  # inclusive
+    stitched = jnp.concatenate([tail, bwt_loc])  # (m + lcap,)
+    src = m + jnp.arange(lcap, dtype=I32) - s_lo - c_local
+    gathered = stitched[jnp.clip(src, 0, lcap + m - 1)]
+    return jnp.where(insmap != 0, insmap - 1, gathered)
 
 
 def _local_merge(comm, bwt_loc, gX, sym, stream, active, lcap, K):
@@ -180,8 +147,7 @@ def _local_merge(comm, bwt_loc, gX, sym, stream, active, lcap, K):
 
     Position arithmetic runs in gX's dtype (int32 while the global
     capacity fits — the driver picks it), and the tables in
-    flat.table_dtype(cap): int64 vector gathers/math are ~10x slower on
-    TPU."""
+    flat.table_dtype(cap)."""
     from ..index.flat import table_dtype
 
     s_idx = comm.s
@@ -215,32 +181,8 @@ def _local_merge(comm, bwt_loc, gX, sym, stream, active, lcap, K):
     )
 
     tdt = table_dtype(lcap * comm.d)
-    if _use_sharded_pallas(lcap, m, K):
-        # per-shard Pallas merge: the drift rides as phantom head marks
-        # (stitched_kernel_merge); rebase the stitched table rows to the
-        # window and drop the fused rebuild
-        new_loc, blkp_st = stitched_kernel_merge(
-            bwt_loc, tail, ldest, rsym, rv, s_lo, lcap, K
-        )
-        mrow = m // K
-        local_pref = (
-            blkp_st[mrow : mrow + lcap // K + 1]
-            - blkp_st[mrow : mrow + 1]
-        ).astype(tdt)
-    else:
-        insmap = jnp.zeros((lcap,), jnp.int8)
-        insmap = insmap.at[ldest].set(
-            (rsym + 1).astype(jnp.int8), mode="drop", unique_indices=True
-        )
-        marks = (insmap != 0).astype(I32)
-        c_local = cumsum_blocked(marks)  # inclusive
-
-        stitched = jnp.concatenate([tail, bwt_loc])  # (m + lcap,)
-        t_idx = jnp.arange(lcap, dtype=I32)
-        src = m + t_idx - s_lo - c_local
-        gathered = stitched[jnp.clip(src, 0, lcap + m - 1)]
-        new_loc = jnp.where(insmap != 0, insmap - 1, gathered)
-        local_pref = build_block_tables(new_loc, K, dtype=tdt)
+    new_loc = stitched_merge(bwt_loc, tail, ldest, rsym, s_lo)
+    local_pref = build_block_tables(new_loc, K, dtype=tdt)
 
     # new local tables with global bases
     totals = local_pref[lcap // K]  # counts over the full window
@@ -546,8 +488,7 @@ class ShardedTpuBwt:
     position range, read state sharded by sorted rank over a 1-D mesh."""
 
     def __init__(self, so=SO_IO, K=128, mesh=None, defer_r=None):
-        # K=128 matches the tuned single-device default (engine/bcr.py):
-        # one rank-table row per 128-lane gather row
+        # K=128 matches the single-device default (engine/bcr.py)
         if mesh is None:
             from .mesh import make_mesh
 
@@ -582,7 +523,7 @@ class ShardedTpuBwt:
         else:
             import math
 
-            ratio = 0.055 * self._lcap * self.d / max(mpad, 1)
+            ratio = FLUSH_PER_PEND_PLAIN * self._lcap * self.d / max(mpad, 1)
             r = int(math.sqrt(ratio)) if ratio >= 1 else 0
             if r < 4:  # shallow deferral loses (see TpuBwt._choose_defer)
                 r = 0
@@ -712,8 +653,7 @@ class ShardedTpuBwt:
                 int(lens.sum()), dtype=np.int64
             )
             buf[dst] = cat
-        # int32 positions whenever the global capacity (and buffer) fit:
-        # int64 vector math is ~10x slower on TPU
+        # int32 positions whenever the global capacity (and buffer) fit
         cap = self._lcap * self.d
         pdt = np.int32 if cap < (1 << 31) - 1 else np.int64
         pkdt = np.int32 if bufcap <= (1 << 30) else np.int64

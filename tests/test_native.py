@@ -161,3 +161,22 @@ def test_native_writers_match_python(rng, tmp_path):
     buf = io.BytesIO()
     write_fmr(eng, buf, block_len=64, max_nodes=4)
     assert p.read_bytes() == buf.getvalue()
+
+
+def test_concurrent_builds_do_not_collide(tmp_path):
+    """Processes that build the library at once (test workers in a fresh
+    checkout) must each end with a loadable library: every build writes
+    its own temporary and renames it into place."""
+    import subprocess
+    import sys
+
+    so = str(tmp_path / "_rb2host.so")
+    code = (
+        "import ctypes, ropebwt2_tpu.native.lib as l; "
+        f"l._SO = {so!r}; l._build(); ctypes.CDLL(l._SO).rb2_count_runs"
+    )
+    procs = [subprocess.Popen([sys.executable, "-c", code],
+                              stderr=subprocess.PIPE) for _ in range(4)]
+    errs = [p.communicate(timeout=300)[1] for p in procs]
+    assert [p.returncode for p in procs] == [0] * 4, errs
+    assert sorted(os.listdir(tmp_path)) == ["_rb2host.so"]

@@ -2,6 +2,7 @@
 packed merge must agree exactly with the int8 formulation."""
 
 import numpy as np
+import pytest
 import jax.numpy as jnp
 
 from ropebwt2_tpu.index.packed import (
@@ -87,52 +88,51 @@ def test_two_level_anchor_boundaries(rng):
     assert np.array_equal(got, want)
 
 
-def test_merge_pallas_packed_interpret(rng):
-    """The packed two-plane kernel (interpret mode) must agree with the
-    int8 jnp reference merge and the two-level tables on the live prefix."""
+@pytest.mark.parametrize("trial", range(4))
+def test_packed_merge_matches_np_insert(trial):
+    """The packed-tier merge (apply_insertions_packed) plus its two-level
+    tables must equal np.insert and a fresh count on the live prefix;
+    odd trials carry garbage nibbles past n."""
     import jax.numpy as jnp
-    from ropebwt2_tpu.index.merge_pallas_packed import (
-        PPAD_ROWS, merge_pallas_packed,
+    from ropebwt2_tpu.index.packed import (
+        apply_insertions_packed, blkb_row, build_two_level_tables,
     )
 
-    CAP, M, K = 131072, 96, 128
-    for trial in range(4):
-        n = int(rng.integers(1, CAP - M))
-        syms = np.full(CAP + PPAD_ROWS * 256, 6, np.int8)
-        syms[:n] = rng.integers(0, 6, n)
-        if trial % 2:
-            syms[n:] = rng.integers(0, 16, CAP + PPAD_ROWS * 256 - n)
-        pb = pack_bwt_np(syms)
-        A = int(rng.integers(1, M + 1))
-        pos = np.zeros(M, np.int64)
-        pos[:A] = np.sort(rng.integers(0, n + 1, A))
-        sym = np.zeros(M, np.int32)
-        sym[:A] = rng.integers(0, 6, A)
-        stream = np.zeros(M, np.int64)
-        stream[:A] = np.arange(A)
-        valid = np.zeros(M, bool)
-        valid[:A] = True
-        jargs = [jnp.asarray(x) for x in (pos, sym, stream, valid)]
+    rng = np.random.default_rng(trial)
+    CAP, M = 32768, 96
+    n = int(rng.integers(1, CAP - M))
+    syms = np.full(CAP, 6, np.int8)
+    syms[:n] = rng.integers(0, 6, n)
+    if trial % 2:
+        syms[n:] = rng.integers(0, 16, CAP - n)
+    pb = pack_bwt_np(syms)
+    A = int(rng.integers(1, M + 1))
+    ins = np.sort(rng.integers(0, n + 1, A))
+    isym = rng.integers(0, 6, A)
+    order = rng.permutation(M)
+    pos = np.zeros(M, np.int64)
+    sym = np.zeros(M, np.int32)
+    stream = np.zeros(M, np.int64)
+    valid = np.zeros(M, bool)
+    pos[order[:A]] = ins
+    sym[order[:A]] = isym
+    stream[order[:A]] = np.arange(A)
+    valid[order[:A]] = True
+    jargs = [jnp.asarray(x) for x in (pos, sym, stream, valid)]
 
-        want = np.asarray(apply_insertions(
-            jnp.asarray(syms), jnp.asarray(n), *jargs
-        ))
-        got_p, blkA, blkB = merge_pallas_packed(
-            jnp.asarray(pb), *jargs, n=jnp.asarray(n), K=K, interpret=True
-        )
-        got = unpack_bwt_np(np.asarray(got_p))
-        lim = n + A
-        assert np.array_equal(got[:lim], want[:lim]), trial
+    got_p = apply_insertions_packed(jnp.asarray(pb), jnp.asarray(n), *jargs)
+    blkA, blkB = build_two_level_tables(got_p, CAP)
+    want = np.insert(syms[:n], ins, isym.astype(np.int8))
+    lim = n + A
+    got = unpack_bwt_np(np.asarray(got_p))
+    assert np.array_equal(got[:lim], want)
 
-        from ropebwt2_tpu.index.packed import blkb_row
-
-        want_tab = np.asarray(build_block_tables(
-            jnp.asarray(want[:CAP]), 128, dtype=jnp.int64
-        ))
-        limk = lim // 128
-        blks = np.arange(limk + 1)
-        rows = np.asarray(blkb_row(blks, CAP // 256))
-        got_tab = np.asarray(blkA)[
-            (blks * 128) >> 24
-        ] + np.asarray(blkB)[rows]
-        assert np.array_equal(got_tab, want_tab[: limk + 1]), trial
+    limk = lim // 128
+    cnt = (want[: limk * 128].reshape(limk, 128)[:, :, None]
+           == np.arange(6)[None, None, :]).sum(axis=1)
+    want_tab = np.concatenate([np.zeros((1, 6), np.int64),
+                               np.cumsum(cnt, axis=0)])
+    blks = np.arange(limk + 1)
+    rows = np.asarray(blkb_row(blks, CAP // 256))
+    got_tab = np.asarray(blkA)[(blks * 128) >> 24] + np.asarray(blkB)[rows]
+    assert np.array_equal(got_tab, want_tab)
